@@ -3,6 +3,6 @@ here the same entry point drops into the CLI (run `python app.py --help`)."""
 
 import sys
 
-from linkpred_tpu.cli import main
+from linkpred.cli import main
 
 sys.exit(main(sys.argv[1:] if len(sys.argv) > 1 else ["compare"]))

@@ -28,14 +28,12 @@ import numpy as np
 
 
 def main():
-    from linkpred_tpu.utils.device import honor_platform_env
-    honor_platform_env()
     import jax
 
-    from linkpred_tpu.data import io, split as sp
-    from linkpred_tpu.data.twowl import build_twowl_data
-    from linkpred_tpu.models import twowl as m
-    from linkpred_tpu.pipelines.twowl_pipeline import (
+    from linkpred.data import io, split as sp
+    from linkpred.data.twowl import build_twowl_data
+    from linkpred.models import twowl as m
+    from linkpred.pipelines.twowl_pipeline import (
         TwoWLRunConfig,
         refine_adaptive,
         refine_halving,

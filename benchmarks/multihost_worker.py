@@ -1,6 +1,6 @@
 """Per-process worker for the multi-host distributed proof.
 
-Every process runs THIS program (JAX multi-controller, the TPU analog of a
+Every process runs THIS program (JAX multi-controller, the analog of a
 Spark executor — reference `node2vec_spark/.../Node2vec.scala:24-61`): it
 joins the job via `jax.distributed.initialize`, builds a global
 ("host", "data", "edge") mesh whose leading axis spans processes (the DCN
@@ -57,7 +57,7 @@ def parse_args(argv=None):
 def toy_twowl(n_nodes=32, seed=7, ei2_bucket=256):
     import numpy as np
 
-    from linkpred_tpu.data.twowl import build_twowl_data
+    from linkpred.data.twowl import build_twowl_data
 
     rng = np.random.default_rng(seed)
     chain = np.stack([np.arange(n_nodes - 1), np.arange(1, n_nodes)], axis=1)
@@ -93,7 +93,7 @@ def main(argv=None):
 
     distributed = args.nproc >= 2
     if distributed:
-        from linkpred_tpu.parallel.multihost import initialize_cpu
+        from linkpred.parallel.multihost import initialize_cpu
 
         initialize_cpu(f"localhost:{args.port}", args.nproc, args.pid,
                        args.ldev)
@@ -103,13 +103,13 @@ def main(argv=None):
     import optax
     from jax.sharding import PartitionSpec as P
 
-    from linkpred_tpu.models import seal
-    from linkpred_tpu.models import twowl as m
-    from linkpred_tpu.parallel import dp
-    from linkpred_tpu.parallel.multihost import (
+    from linkpred.models import seal
+    from linkpred.models import twowl as m
+    from linkpred.parallel import dp
+    from linkpred.parallel.multihost import (
         fetch_replicated, global_mesh, global_put, global_twowl_split, sync,
     )
-    from linkpred_tpu.utils.checkpoint import restore_pytree, save_pytree
+    from linkpred.utils.checkpoint import restore_pytree, save_pytree
 
     reference = args.nproc == 0
     if reference:
@@ -119,10 +119,10 @@ def main(argv=None):
         host = args.nproc if distributed else 1
         edge = 2
         data = total // (host * edge)
-        # DCN-outer/ICI-inner layout via distributed.hybrid_mesh (falls
+        # hosts-outer/devices-inner layout via distributed.hybrid_mesh (falls
         # back to the process-major reshape on CPU device topologies,
         # which global_mesh asserts is what we got)
-        from linkpred_tpu.parallel.distributed import hybrid_mesh
+        from linkpred.parallel.distributed import hybrid_mesh
 
         mesh = hybrid_mesh((data, edge), (host,),
                            axis_names=("host", "data", "edge"))

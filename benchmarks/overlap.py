@@ -12,9 +12,8 @@ Measures three variants of the mesh aggregation at a given scale:
                  collectives) — the overlap-on arm.
 
 On the virtual CPU mesh the collectives are memcpys on one host, so the
-deltas bound scheduling overhead, not ICI overlap; the real signal needs
-a multi-chip TPU (BASELINE north star). Numbers land in docs/KERNELS.md
-and the bench gates. One JSON line per variant.
+deltas bound scheduling overhead, not interconnect overlap; the real
+signal needs several GPUs of one machine. One JSON line per variant.
 """
 
 from __future__ import annotations
@@ -30,8 +29,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main():
-    from linkpred_tpu.utils.device import honor_platform_env
-    honor_platform_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("--nodes", type=int, default=235_000)
     ap.add_argument("--edges", type=int, default=1_280_000)
@@ -46,9 +43,9 @@ def main():
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from benchmarks.scaling import bench_chained, synth_powerlaw_graph
-    from linkpred_tpu.data.graph import Graph
-    from linkpred_tpu.parallel import make_mesh
-    from linkpred_tpu.parallel.spmm_shard import (
+    from linkpred.data.graph import Graph
+    from linkpred.parallel import make_mesh
+    from linkpred.parallel.spmm_shard import (
         build_node_sharded_buckets,
         spmm_node_sharded,
         spmm_node_sharded_pipelined,

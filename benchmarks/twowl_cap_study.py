@@ -1,4 +1,4 @@
-"""ei2 cap-sensitivity study (round-4 VERDICT item 1a).
+"""ei2 cap-sensitivity study.
 
 Does the per-node ei2 product budget (`build_ei2_capped`, uniform random
 truncation) destroy the 2-WL signal? Two experiments, same schedule:
@@ -9,7 +9,7 @@ truncation) destroy the 2-WL signal? Two experiments, same schedule:
    throughput side of the trade (ei2 columns ∝ step time).
 
 Writes one JSON line per run and a summary to logs/twowl_cap_study.json.
-Run on the TPU: `python benchmarks/twowl_cap_study.py`.
+Run on the GPU: `python benchmarks/twowl_cap_study.py`.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main():
-    from linkpred_tpu.pipelines.twowl_scale import (
+    from linkpred.pipelines.twowl_scale import (
         ScaleTwoWLConfig,
         run_twowl_scale,
     )

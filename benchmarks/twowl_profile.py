@@ -1,14 +1,14 @@
 """Component-level timing of the TwoWL scale training epoch.
 
-Answers "where do the ~2 s/epoch go at 50k nodes" (round-4 VERDICT weak
-item 1b) by timing isolated pieces of the train epoch on the real chip:
+Answers "where does the epoch time go at 50k nodes" by timing isolated
+pieces of the train epoch on the device:
 
 - full train_step (fwd+bwd+adam) in degree / free-embedding modes,
 - forward only (eval pass = the every-`eval_every` val AUC cost),
 - a depth2=0 ablation (1-WL stack alone) to separate the 2-WL ei2 cost,
 - the raw planned-gather/segment-sum primitives at the exact ei2 shape.
 
-Prints one JSON line per measurement. Run on the TPU:
+Prints one JSON line per measurement. Run on the GPU:
     python benchmarks/twowl_profile.py --nodes 50000 --edges 250000
 """
 
@@ -27,10 +27,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def timeit(fn, iters=3, warmup=1):
-    import jax.numpy as jnp
+    import jax
 
     def run():
-        return float(jnp.sum(fn()))
+        return jax.block_until_ready(fn())
 
     for _ in range(warmup):
         run()
@@ -52,8 +52,8 @@ def main():
     import jax.numpy as jnp
     import optax
 
-    from linkpred_tpu.models import twowl as m
-    from linkpred_tpu.pipelines.twowl_scale import (
+    from linkpred.models import twowl as m
+    from linkpred.pipelines.twowl_scale import (
         ScaleTwoWLConfig,
         build_scale_data,
     )
@@ -129,7 +129,7 @@ def main():
                       "seconds": round(dt, 4)}))
 
     # raw primitive costs at the exact ei2 shape
-    from linkpred_tpu.ops.segment import (
+    from linkpred.ops.segment import (
         gather_rows_planned,
         segment_sum_planned,
     )

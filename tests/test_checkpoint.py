@@ -6,7 +6,7 @@ import jax
 import numpy as np
 import pytest
 
-from linkpred_tpu.utils import checkpoint, plots
+from linkpred.utils import checkpoint, plots
 
 
 class TestCheckpoint:
@@ -39,7 +39,7 @@ class TestCheckpoint:
             checkpoint.restore_pytree(path, {"x": np.zeros(4)})
 
     def test_twowl_params_roundtrip(self, tmp_path):
-        from linkpred_tpu.models import twowl as m
+        from linkpred.models import twowl as m
 
         cfg = m.TwoWLConfig(max_degree=5, channels_1wl=8, channels_2wl=8,
                             depth1=1, depth2=1)

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from linkpred_tpu.config import Config, apply_overrides
-from linkpred_tpu.data.graph import Graph
-from linkpred_tpu.utils.profiling import ThroughputCounter
+from linkpred.config import Config, apply_overrides
+from linkpred.data.graph import Graph
+from linkpred.utils.profiling import ThroughputCounter
 
 
 class TestConfig:

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from linkpred_tpu.data.graph import Graph
-from linkpred_tpu.data import split as sp
+from linkpred.data.graph import Graph
+from linkpred.data import split as sp
 
 
 def random_graph(rng, n=50, m=120):

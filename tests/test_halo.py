@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from linkpred_tpu.data.graph import Graph
-from linkpred_tpu.parallel.halo import HaloLayout, spmm_halo, spmm_halo_sym
-from linkpred_tpu.parallel.mesh import make_mesh
+from linkpred.data.graph import Graph
+from linkpred.parallel.halo import HaloLayout, spmm_halo, spmm_halo_sym
+from linkpred.parallel.mesh import make_mesh
 
 
 def _rand_sym_graph(rng, n=400, e=1600):

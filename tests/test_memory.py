@@ -3,20 +3,19 @@
 JAX's functional purity gives data-race freedom for free; the memory
 hazard in THIS framework is different: the 2-WL structures put S ~ 100x
 num_edges slot columns through every layer, so one careless intermediate
-layout multiplies peak HBM by the slot count. That has happened: a
-one-hot einsum formulation of the fat-row select tile-padded its small
-trailing dims and inflated a 1.7 GB tensor to 21 GB of HBM at the
-50k-node shape (see `ops.segment.take_rows_fat` docstring).
+layout multiplies peak device memory by the slot count. That has
+happened: a one-hot einsum over small trailing dims once inflated a
+1.7 GB tensor to 21 GB at the 50k-node shape.
 
 These tests pin the XLA-computed peak temp memory of the big compiled
 programs at a fixed medium shape. They catch that incident class in CI
 (virtual CPU mesh — `memory_analysis()` works on every backend) without
-needing a TPU.
+needing a GPU.
 
 Buffer donation is deliberately NOT used on these scans: the donatable
 carries (params + optimizer moments) are ~10 MB at the 50k-node scale
-config against 16 GB of HBM and ~GB-sized plan/temp buffers — measured
-immaterial. The budget below is the check that matters.
+config against ~GB-sized plan/temp buffers. The budget below is the
+check that matters.
 """
 
 import numpy as np
@@ -25,8 +24,8 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from linkpred_tpu.data.twowl import build_twowl_data
-from linkpred_tpu.models import twowl as m
+from linkpred.data.twowl import build_twowl_data
+from linkpred.models import twowl as m
 
 
 @pytest.fixture(scope="module")

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from linkpred_tpu.data.graph import Graph
-from linkpred_tpu.ops import segment, spmm, sddmm
+from linkpred.data.graph import Graph
+from linkpred.ops import segment, spmm, sddmm
 
 
 @pytest.fixture
@@ -137,7 +137,7 @@ def test_spmm_bucketed_weighted_and_isolated(rng):
 
 
 def test_segment_plan_matches_segment_sum(rng):
-    from linkpred_tpu.ops.segment import (
+    from linkpred.ops.segment import (
         SegmentPlan,
         segment_sum_planned,
     )
@@ -167,75 +167,55 @@ def test_segment_plan_matches_segment_sum(rng):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_segment_sum_onehot_matches_planned(rng):
-    """One-hot-MXU regime (interpret on CPU) == planned segment sum,
-    forward and VJP."""
-    S, R, F = 300, 45, 8
-    ids = rng.integers(0, R, S).astype(np.int32)
-    msgs = rng.standard_normal((S, F)).astype(np.float32)
-    plan = segment.SegmentPlan.build(ids, R)
-    ops_ = plan.operands()
-    slots, valid = plan.ell_operands()
-
-    ref = segment.segment_sum_planned(R, jnp.asarray(msgs), *ops_)
-    got = segment.segment_sum_onehot(
-        R, jnp.asarray(msgs), ops_[0], slots, valid, True
-    )
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-5, atol=1e-5)
-
-    def loss_planned(mm):
-        return (segment.segment_sum_planned(R, mm, *ops_) ** 2).sum()
-
-    def loss_onehot(mm):
-        return (segment.segment_sum_onehot(
-            R, mm, ops_[0], slots, valid, True) ** 2).sum()
-
-    g_ref = jax.grad(loss_planned)(jnp.asarray(msgs))
-    g_got = jax.grad(loss_onehot)(jnp.asarray(msgs))
-    np.testing.assert_allclose(np.asarray(g_got), np.asarray(g_ref),
-                               rtol=1e-4, atol=1e-4)
-
-
 def test_spmm_auto_regimes_match_dense(small):
     g, x = small
     dense = dense_ref(g, x)
-    for force in ("pallas", "bucketed", "ell"):
+    for force in ("bucketed", "ell"):
         out = spmm.spmm_auto(g.nbr, g.nbr_mask, jnp.asarray(x), force=force)
         np.testing.assert_allclose(np.asarray(out), dense,
                                    rtol=1e-4, atol=1e-4,
                                    err_msg=f"regime {force}")
 
 
-def test_choose_backend_1wl_rule():
-    # resolved 'plan' everywhere in round 5 (the one-hot MXU kernel lost
-    # its own regime on the re-A/B — docs/KERNELS.md "Pallas verdict")
-    assert spmm.choose_backend_1wl(620, 3556, platform="tpu") == "plan"
-    assert spmm.choose_backend_1wl(7112, 81920, platform="tpu") == "plan"
-    assert spmm.choose_backend_1wl(620, 3556, platform="cpu") == "plan"
+def test_spmm_auto_unknown_regime_raises(small):
+    g, x = small
+    for force in ("pallas", "onehot"):
+        with pytest.raises(ValueError, match="unknown SpMM regime"):
+            spmm.spmm_auto(g.nbr, g.nbr_mask, jnp.asarray(x), force=force)
 
 
-class TestTakeRowsFat:
-    def test_equals_plain_gather(self, rng):
-        """Fat-row gather == x[idx] for every pack/shape combination."""
-        import jax.numpy as jnp
+def test_spmm_auto_default_regime_by_size(small, monkeypatch):
+    """Without `force`, graphs above BUCKETED_MIN_NODES take the bucketed
+    layout and smaller ones the flat ELL gather."""
+    g, x = small
+    calls = []
+    real_bucketed, real_ell = spmm.spmm_bucketed, spmm.spmm_ell
+    monkeypatch.setattr(spmm, "spmm_bucketed", lambda *a: (
+        calls.append("bucketed"), real_bucketed(*a))[1])
+    monkeypatch.setattr(spmm, "spmm_ell", lambda *a: (
+        calls.append("ell"), real_ell(*a))[1])
+    spmm.spmm_auto(g.nbr, g.nbr_mask, jnp.asarray(x))
+    monkeypatch.setattr(spmm, "BUCKETED_MIN_NODES", g.num_nodes - 1)
+    out = spmm.spmm_auto(g.nbr, g.nbr_mask, jnp.asarray(x))
+    assert calls == ["ell", "bucketed"]
+    np.testing.assert_allclose(np.asarray(out), dense_ref(g, x),
+                               rtol=1e-4, atol=1e-4)
 
-        from linkpred_tpu.ops.segment import take_rows_fat
 
-        for n, f in ((100, 16), (97, 16), (64, 8), (50, 200)):
-            x = jnp.asarray(rng.standard_normal((n, f)).astype(np.float32))
-            idx = jnp.asarray(rng.integers(0, n, 333).astype(np.int32))
-            got = np.asarray(take_rows_fat(x, idx))
-            np.testing.assert_allclose(got, np.asarray(x)[np.asarray(idx)],
-                                       rtol=1e-6)
+def test_ops_import_loads_no_pallas():
+    """`import linkpred.ops` (and the models above it) must not pull in
+    any `jax.experimental.pallas` module."""
+    import os
+    import subprocess
+    import sys
 
-    def test_explicit_pack(self, rng):
-        import jax.numpy as jnp
-
-        from linkpred_tpu.ops.segment import take_rows_fat
-
-        x = jnp.asarray(rng.standard_normal((41, 4)).astype(np.float32))
-        idx = jnp.asarray(rng.integers(0, 41, 77).astype(np.int32))
-        got = np.asarray(take_rows_fat(x, idx, pack=16))
-        np.testing.assert_allclose(got, np.asarray(x)[np.asarray(idx)],
-                                   rtol=1e-6)
+    code = ("import sys, linkpred.ops, linkpred.models.twowl; "
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('jax.experimental.pallas')))")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, timeout=120,
+        cwd=os.path.join(os.path.dirname(__file__), ".."))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]", out.stdout

@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from linkpred_tpu.models.word2vec import SGNSConfig
+from linkpred.models.word2vec import SGNSConfig
 
 
 @pytest.fixture(autouse=True)
@@ -22,7 +22,7 @@ def _workdir(tmp_path, monkeypatch):
 
 class TestPipelines:
     def test_seal_small(self):
-        from linkpred_tpu.pipelines.seal_pipeline import SEALConfig, run_seal
+        from linkpred.pipelines.seal_pipeline import SEALConfig, run_seal
 
         res = run_seal(
             SEALConfig(epochs=3, dimension=32, max_neighbors=50),
@@ -35,10 +35,10 @@ class TestPipelines:
     def test_twowl_small(self):
         import jax
 
-        from linkpred_tpu.data import io
-        from linkpred_tpu.data.twowl import build_twowl_data
-        from linkpred_tpu.models import twowl as m
-        from linkpred_tpu.pipelines.twowl_pipeline import (
+        from linkpred.data import io
+        from linkpred.data.twowl import build_twowl_data
+        from linkpred.models import twowl as m
+        from linkpred.pipelines.twowl_pipeline import (
             TwoWLRunConfig,
             train_routine_fused,
         )
@@ -57,7 +57,7 @@ class TestPipelines:
         assert 0.0 <= res["test_auc"] <= 1.0
 
     def test_logistic_small(self):
-        from linkpred_tpu.pipelines.logistic_pipeline import (
+        from linkpred.pipelines.logistic_pipeline import (
             LogisticConfig,
             run_logistic,
         )
@@ -78,7 +78,7 @@ class TestPipelines:
         """BASELINE.json stress config: 2-hop enclosing subgraphs with
         node2vec features fused — exercises the sampler's frontier
         expansion + max_neighbors truncation + padding at hop 2."""
-        from linkpred_tpu.pipelines.seal_pipeline import SEALConfig, run_seal
+        from linkpred.pipelines.seal_pipeline import SEALConfig, run_seal
 
         res = run_seal(
             SEALConfig(epochs=3, dimension=32, max_neighbors=40, hop=2),
@@ -90,7 +90,7 @@ class TestPipelines:
     def test_twowl_sweep_with_refine(self, tmp_path):
         import numpy as np
 
-        from linkpred_tpu.pipelines.twowl_pipeline import (
+        from linkpred.pipelines.twowl_pipeline import (
             TwoWLRunConfig,
             run_twowl,
         )
@@ -110,7 +110,7 @@ class TestSEALScale:
         """Collab-scale SEAL pipeline (CSR extraction + native DRNL +
         batched DGCNN) at toy size: loss must decrease and held-out AUC
         must beat chance."""
-        from linkpred_tpu.pipelines.seal_scale import (
+        from linkpred.pipelines.seal_scale import (
             ScaleSEALConfig,
             run_seal_scale,
         )
@@ -127,7 +127,7 @@ class TestSEALScale:
 
 class TestScaleCLI:
     def test_scale_family_seal_parses_and_runs(self, capsys):
-        from linkpred_tpu import cli
+        from linkpred import cli
 
         cli.main(["--quiet", "scale", "--family", "seal", "--nodes", "400",
                   "--edges", "1600", "--hop", "1"])
@@ -135,7 +135,7 @@ class TestScaleCLI:
         assert '"test_auc"' in out
 
     def test_scale_family_twowl_parses_and_runs(self, capsys):
-        from linkpred_tpu import cli
+        from linkpred import cli
 
         cli.main(["--quiet", "scale", "--family", "twowl", "--nodes", "1200",
                   "--edges", "5000", "--steps", "20"])
@@ -146,7 +146,7 @@ class TestScaleCLI:
     def test_load_edge_pairs_whitespace_and_one_based(self, tmp_path):
         """Whitespace-separated 1-based dumps (the karate-style format)
         parse and relabel correctly."""
-        from linkpred_tpu.data.io import load_edge_pairs
+        from linkpred.data.io import load_edge_pairs
 
         path = tmp_path / "ws.edgelist"
         path.write_text("1 2\n2 3\n3 1\n3 1\n4 4\n")  # dup + self loop
@@ -157,14 +157,14 @@ class TestScaleCLI:
 
     def test_scale_edges_file_real_graph(self, tmp_path, capsys):
         """`cli scale --edges-file` must replace the synthetic generator
-        with a real edge dump (round-4 VERDICT item 3): arbitrary ids,
+        with a real edge dump: arbitrary ids,
         header row, comma separation, extra columns all tolerated."""
         import json
 
         import numpy as np
 
-        from linkpred_tpu import cli
-        from linkpred_tpu.data.io import load_edge_pairs
+        from linkpred import cli
+        from linkpred.data.io import load_edge_pairs
 
         # a "real" dump: shuffled non-contiguous ids + header + weights
         rng = np.random.default_rng(3)
@@ -198,12 +198,12 @@ class TestReportCLI:
         """`cli report` (the L5 static-surface parity artifact) must emit
         one self-contained HTML file with the per-family tables and the
         reference-comparison deltas."""
-        from linkpred_tpu import cli
+        from linkpred import cli
 
         out_file = tmp_path / "report.html"
         cli.main(["report", "--output", str(out_file)])
         html = out_file.read_text()
-        assert "<h1>linkpred_tpu" in html
+        assert "<h1>linkpred" in html
         for family in ("logistic", "seal", "twowl"):
             assert family in html
         assert "0.8947" in html  # reference TwoWL AUC column

@@ -4,7 +4,7 @@ CLI-native in-place line — SURVEY §5 metrics/observability row)."""
 
 import io
 
-from linkpred_tpu.utils.progress import LiveProgress, sparkline
+from linkpred.utils.progress import LiveProgress, sparkline
 
 
 class TestSparkline:

@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from linkpred_tpu.models import seal
+from linkpred.models import seal
 
 
 @pytest.fixture
@@ -133,7 +133,7 @@ class TestCompactInputs:
     def test_assemble_matches_host_dense(self, rng):
         """On-device assemble_inputs == host gnn_inputs on the same batch."""
         import jax.numpy as jnp
-        from linkpred_tpu.data import subgraph as sg
+        from linkpred.data import subgraph as sg
 
         P, K, N, D = 5, 12, 30, 7
         adj = (rng.random((P, K, K)) < 0.3).astype(np.uint8)

@@ -4,9 +4,9 @@ import jax
 import numpy as np
 import pytest
 
-from linkpred_tpu.models.word2vec import SGNSConfig
-from linkpred_tpu.parallel.mesh import make_mesh
-from linkpred_tpu.parallel.sgns import (
+from linkpred.models.word2vec import SGNSConfig
+from linkpred.parallel.mesh import make_mesh
+from linkpred.parallel.sgns import (
     train_sgns_mesh,
     train_sgns_mesh_reference,
 )
@@ -31,8 +31,8 @@ class TestMeshSGNS:
     def test_mesh_embeddings_separate_cliques(self):
         """Distributed fit must learn the same structure the single-device
         trainer does (two cliques + bridge)."""
-        from linkpred_tpu.data.graph import Graph
-        from linkpred_tpu.ops.walk import WalkEngine
+        from linkpred.data.graph import Graph
+        from linkpred.ops.walk import WalkEngine
 
         n = 16
         pairs = []

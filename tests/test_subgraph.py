@@ -10,7 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from linkpred_tpu.data import subgraph as sg
+from linkpred.data import subgraph as sg
 
 
 def bfs_dists(adj: np.ndarray, source: int) -> np.ndarray:
@@ -186,7 +186,7 @@ class TestCSRExtraction:
     structural properties when it is."""
 
     def _graph(self, seed=0, n=150, e=500):
-        from linkpred_tpu.data.graph import Graph
+        from linkpred.data.graph import Graph
 
         rng = np.random.default_rng(seed)
         pairs = rng.integers(0, n, (e, 2))
@@ -199,7 +199,7 @@ class TestCSRExtraction:
     @pytest.mark.parametrize("hop", [1, 2])
     @pytest.mark.parametrize("use_native", [True, False])
     def test_matches_dense_without_cap(self, hop, use_native, monkeypatch):
-        from linkpred_tpu import native
+        from linkpred import native
 
         if use_native and not native.available():
             pytest.skip("native library unavailable")
@@ -276,7 +276,7 @@ class TestCSRExtraction:
 
 class TestNativeDRNL:
     def test_matches_jit_bfs(self):
-        from linkpred_tpu import native
+        from linkpred import native
 
         if not native.available():
             pytest.skip("native library unavailable")

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from linkpred_tpu.data.graph import Graph
-from linkpred_tpu.ops.walk import AliasTables, WalkEngine, alias_setup_rows
+from linkpred.data.graph import Graph
+from linkpred.ops.walk import AliasTables, WalkEngine, alias_setup_rows
 
 
 def test_alias_setup_distribution(rng):
@@ -41,7 +41,7 @@ def test_second_order_bias():
     # favors returning to 0; q small favors moving outward.
     g = Graph.from_undirected_edges([0, 1, 2], [1, 2, 0], num_nodes=3)
     import jax.numpy as jnp
-    from linkpred_tpu.ops.walk import simulate_walks
+    from linkpred.ops.walk import simulate_walks
 
     def next_counts(p, q):
         tab = AliasTables.build(g, p=p, q=q)
@@ -86,8 +86,8 @@ class TestWeightedWalks:
     def test_weighted_alias_bias(self, rng):
         """A heavily weighted edge dominates the transition distribution."""
         import jax
-        from linkpred_tpu.data.graph import Graph
-        from linkpred_tpu.ops.walk import WalkEngine
+        from linkpred.data.graph import Graph
+        from linkpred.ops.walk import WalkEngine
 
         # node 0 -> {1 (w=100), 2 (w=1)}; walks from 0 should mostly hit 1
         src = np.array([0, 0, 1, 2])
@@ -96,7 +96,7 @@ class TestWeightedWalks:
         g = Graph.from_edges(src, dst, num_nodes=3, weight=w)
         eng = WalkEngine(g)
         starts = jnp.zeros(2000, dtype=jnp.int32)
-        from linkpred_tpu.ops.walk import simulate_walks
+        from linkpred.ops.walk import simulate_walks
 
         walks = np.asarray(simulate_walks(
             jax.random.PRNGKey(0), starts, eng.nbr, eng.indptr, eng.degree,
@@ -106,7 +106,7 @@ class TestWeightedWalks:
         assert frac_to_1 > 0.95  # expect ~100/101
 
     def test_weighted_edgelist_loader(self, tmp_path):
-        from linkpred_tpu.data.io import load_edgelist
+        from linkpred.data.io import load_edgelist
 
         path = tmp_path / "w.edgelist"
         path.write_text("0 1 5.0\n1 2 1.0\n")

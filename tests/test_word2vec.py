@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import pytest
 
-from linkpred_tpu.data.graph import Graph
-from linkpred_tpu.models.word2vec import SGNSConfig, _keep_prob, _noise_alias, train_sgns
-from linkpred_tpu.ops.walk import WalkEngine
+from linkpred.data.graph import Graph
+from linkpred.models.word2vec import SGNSConfig, _keep_prob, _noise_alias, train_sgns
+from linkpred.ops.walk import WalkEngine
 
 
 class TestSGNS:
@@ -92,7 +92,7 @@ class TestSGNSPrep:
         import jax
         import numpy as np
 
-        from linkpred_tpu.models.word2vec import (
+        from linkpred.models.word2vec import (
             SGNSConfig,
             prepare_sgns,
             train_sgns,
